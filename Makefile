@@ -12,10 +12,10 @@ bench:
 	python bench.py
 
 demo:
-	python examples/groovebox_demo.py /tmp/groovebox_demo.wav
+	python examples/groovebox_demo.py groovebox_demo.wav
 
 demo-multichip:
-	python examples/multichip_demo.py /tmp/multichip_demo.wav
+	python examples/multichip_demo.py multichip_demo.wav
 
 clean:
 	$(MAKE) -C native clean

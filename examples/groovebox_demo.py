@@ -72,7 +72,7 @@ BASS_NOTES = [36, 36, 43, 41]  # per bar
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("output", nargs="?", default="/tmp/groovebox_demo.wav")
+    ap.add_argument("output", nargs="?", default="groovebox_demo.wav")
     ap.add_argument("--backend", default="numpy", choices=["numpy", "jax"])
     ap.add_argument("--bars", type=int, default=4)
     args = ap.parse_args()
@@ -130,8 +130,7 @@ def main() -> int:
         res = engine.process_block()
         # recorders need every block; meters/positions at the 50 ms cadence
         # (the pump's discipline, capi/bridge._consume — each update_session
-        # is a device->host sync, which on remote-attached TPUs costs a
-        # relay round trip per call)
+        # is a device->host sync)
         if engine.levels.is_recording:
             engine.levels.feed_recorders(res.outputs)
         if i % engine._levels_every == 0:

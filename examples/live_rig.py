@@ -3,11 +3,11 @@
 Everything the README's "Production deployment" section describes, in
 order, as one script — the embedding-host recipe for a live groovebox:
 
-1. persistent XLA compile cache (fast restarts),
+1. persistent XLA compile cache (fast restarts; the engine keeps it in
+   JAX_COMPILATION_CACHE_DIR, else in the checkout's .jax_cache/),
 2. engine construction (bucketed dispatch is the default),
 3. warmup: every voice-bucket render shape compiles BEFORE realtime, and
-   the first device->host readback is paid here (on relay-attached TPUs
-   that readback is minutes; it must never land inside the pump),
+   the first device->host readback is paid here, never inside the pump,
 4. audio sink + MIDI wiring (hardware hot-plug where ALSA exists; a
    virtual port stands in everywhere else),
 5. the realtime pump, then SLO/meter reporting.
@@ -22,9 +22,7 @@ device). The reference's equivalent is initJuce + JACK graph setup
 from __future__ import annotations
 
 import argparse
-import os
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -43,12 +41,6 @@ def main() -> int:
                     help='"alsa[:dev]", "file:<path>" or "null"')
     args = ap.parse_args()
 
-    # 1. compile cache: first boot compiles, every later boot reads cache
-    os.environ.setdefault(
-        "LIBZL_TPU_COMPILE_CACHE",
-        os.path.join(tempfile.gettempdir(), "libzl_tpu_cache"),
-    )
-
     from libzl_tpu.capi.bridge import EngineRuntime
     from libzl_tpu.engine.commands import ClipCommand
     from libzl_tpu.io.sinks import make_sink
@@ -57,7 +49,8 @@ def main() -> int:
     from libzl_tpu.midi.router import Destination
     from libzl_tpu.models.clip import ClipAudioSource
 
-    # 2. engine + runtime (pump not started yet)
+    # 1+2. engine + runtime (pump not started yet); a jax engine turns on
+    # the persistent compile cache itself (libzl_tpu.device)
     t0 = time.perf_counter()
     # pool size per backend: the numpy mirror renders the full pool each
     # block on one core (bucketed prefix dispatch is a jax-path feature)

@@ -1,12 +1,13 @@
-"""Multi-chip demo: a 4096-voice engine sharded over a device mesh.
+"""Multi-device demo: a 4096-voice engine sharded over a device mesh.
 
-Runs on real chips when several are attached; on a dev machine it runs on a
-virtual 8-device CPU mesh, which exercises the identical pjit/sharding path
-(the reference caps at 96 voices across 12 JACK clients on one SBC —
-lib/SamplerSynth.cpp:23,254-278; here the voice axis shards over ICI and the
-only cross-device traffic is the lane-mixdown psum, parallel/sharding.py).
+Runs on every device jax finds (e.g. four GPUs of one host); with --cpu it
+runs on a virtual 8-device CPU mesh instead, which exercises the identical
+sharding path (the reference caps at 96 voices across 12 JACK clients on
+one SBC — lib/SamplerSynth.cpp:23,254-278; here the voice axis shards over
+the mesh and the only cross-device traffic is the lane-mixdown psum,
+parallel/sharding.py).
 
-    python examples/multichip_demo.py [out.wav]
+    python examples/multichip_demo.py [--cpu] [out.wav]
 """
 
 import os
@@ -15,9 +16,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-# Default: a virtual 8-device CPU mesh (works anywhere). Set
-# LIBZL_DEMO_REAL=1 to use whatever real devices jax finds instead.
-if not os.environ.get("LIBZL_DEMO_REAL"):
+CPU = "--cpu" in sys.argv[1:]
+if CPU:
     os.environ.setdefault(
         "XLA_FLAGS", "--xla_force_host_platform_device_count=8"
     )
@@ -26,7 +26,7 @@ import numpy as np
 
 import jax
 
-if not os.environ.get("LIBZL_DEMO_REAL"):
+if CPU:
     jax.config.update("jax_platforms", "cpu")
 
 from libzl_tpu.engine.engine import AudioEngine
@@ -37,7 +37,7 @@ from libzl_tpu.parallel.sharding import make_mesh
 SR = 48000
 
 
-def main(out_path="/tmp/multichip_demo.wav"):
+def main(out_path="multichip_demo.wav"):
     mesh = make_mesh()
     n_dev = len(mesh.devices.flatten())
     print(f"mesh: {n_dev} devices ({mesh.devices.flatten()[0].platform})")
@@ -97,4 +97,4 @@ def main(out_path="/tmp/multichip_demo.wav"):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    main(*[a for a in sys.argv[1:] if a != "--cpu"])

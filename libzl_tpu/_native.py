@@ -10,6 +10,7 @@ degrades to None (callers gate on availability) when no compiler exists.
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -28,14 +29,19 @@ def _build(stem: str, opt: str) -> Optional[Path]:
         return None
     if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
         return so
+    # build to a private name, then rename: several processes (test
+    # workers) may build at once, and none may load a half-written file
+    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
             ["g++", opt, "-fPIC", "-shared", "-std=c++17",
-             "-o", str(so), str(src)],
+             "-o", str(tmp), str(src)],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, so)
         return so
     except Exception:
+        tmp.unlink(missing_ok=True)
         return None
 
 

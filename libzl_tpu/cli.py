@@ -104,7 +104,7 @@ def _build_parser() -> argparse.ArgumentParser:
 
     ev = sub.add_parser(
         "env", help="print backend/device/capability report (deployment "
-        "debugging: which backend, fetch kernel, native cores and system "
+        "debugging: which backend and device, native cores and system "
         "libraries this host resolves to)"
     )
     ev.add_argument("--backend", default="jax", choices=["jax", "numpy"])
@@ -189,8 +189,8 @@ def cmd_render(args) -> int:
         res = engine.process_block()
         blocks.append(res.outputs.master)
     if args.backend == "jax":
-        # concatenate on device, fetch once (device->host transfers are
-        # expensive per call on remote-attached TPUs)
+        # concatenate on device, fetch once (one device->host transfer
+        # instead of one per block)
         import jax.numpy as jnp
 
         master = np.asarray(jnp.concatenate(blocks, axis=0))
@@ -355,49 +355,18 @@ def cmd_info(args) -> int:
 
 
 def cmd_env(args) -> int:
-    import os
-
-    print(f"libzl_tpu environment report")
-    if args.backend == "jax":
-        import jax
-
-        devs = jax.devices()
-        print(f"  jax backend: {jax.default_backend()} "
-              f"({len(devs)} device(s): {[d.device_kind for d in devs][:4]})")
-    else:
-        print("  backend: numpy (host mirror)")
+    print("libzl_tpu environment report")
     from .engine.engine import AudioEngine
 
     eng = AudioEngine(backend=args.backend, num_voices=64)
-    print(f"  fetch resolution (auto): {eng.fetch}")
-    if eng.fetch.startswith("windows"):
-        from .ops.fetch_pallas import parse_suffix
-
-        prec, variant, chunk, align, group = parse_suffix(
-            eng.fetch.partition(":")[2])
-        print(f"    windows kernel: precision={prec} variant={variant} "
-              f"chunk={chunk} align={align} group={group}")
+    dev = eng.stats()
+    print(f"  backend: {dev['backend']} on {dev['platform']} "
+          f"({dev['device_kind']}, {dev['device_count']} device(s))")
     print(f"  native host core: {eng.use_native_host}")
     print("  lookahead horizon: "
           + (f"{eng._lookahead} blocks (window "
              f"{eng._lookahead * eng.block_frames} frames)"
              if eng._lookahead else "off"))
-    print("  ratio ladder: "
-          + (f"rungs {eng._ratio_ladder} (narrow-slab kernel when active "
-             f"ratios fit a lower rung)"
-             if len(eng._ratio_ladder) > 1 else "off (single rung)"))
-    if eng.fetch.startswith("windows"):
-        from .ops.fetch_pallas import region_rows, slab_cols
-
-        region = region_rows(eng.block_frames, eng.max_pitch_ratio)
-        slab = slab_cols(eng.max_pitch_ratio)
-        # roofline summary (tools/roofline_r3.py has the full model)
-        V, B = eng.pool.num_voices, eng.block_frames
-        dma_mb = V * 2 * 2 * region * 4 / 1e6
-        stream_us = V * (B // 128) * 2 * slab / 0.94e9 / 4 * 1e6
-        print(f"  fetch roofline: DMA {dma_mb:.1f} MB/block, skinny-dot "
-              f"stream bound ~{stream_us:.0f} us/block "
-              f"(binding; see tools/roofline_r3.py)")
     from .ops.resample import resolve_stretch_backend
 
     print(f"  stretch backend (auto): {resolve_stretch_backend()}")
@@ -413,8 +382,9 @@ def cmd_env(args) -> int:
         ("mp3 write", codecs.mp3_write_available),
     ):
         print(f"  codec {name}: {fn()}")
-    cache = os.environ.get("LIBZL_TPU_COMPILE_CACHE")
-    print(f"  compile cache: {cache or '(unset)'}")
+    from .device import compile_cache_dir
+
+    print(f"  compile cache: {compile_cache_dir()}")
     return 0
 
 

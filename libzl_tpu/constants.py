@@ -92,16 +92,6 @@ def bq_extra_resets(block_frames: int, sample_rate: float) -> int:
     min_tick = sample_rate * 60.0 / (BPM_MAXIMUM * BEAT_SUBDIVISIONS)
     max_wraps = int((block_frames - 1) / min_tick) + 2
     return max(max_wraps - (MAX_SEGMENTS_PER_BLOCK - 1), 0)
-# Max per-voice pitch ratio: two octaves of upward transposition; beyond
-# that is outside the groovebox's musical envelope. Also bounds the fetch
-# region span per block for the Pallas windows kernel (ops/fetch_pallas.py
-# asserts its R_MAX matches). Kept here so the realtime note-on path never
-# imports the pallas machinery (a multi-second import).
-MAX_PITCH_RATIO = 4.0
-# Fetch-window anchor granularity in samples (= fetch_pallas.SOUND_BLOCK,
-# asserted there); here for the same import-hygiene reason: build_program
-# computes window anchors every block and must never import pallas.
-WINDOW_ANCHOR_BLOCK = 512
 
 # --- Scheduler (lib/SyncTimer.cpp:265-268) ---
 STEP_RING_SIZE = 32768          # ticks of schedule-ahead capacity

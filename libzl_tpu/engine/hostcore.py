@@ -15,7 +15,7 @@ import numpy as np
 
 # base int columns; each engine adds pool.n_bq_extra beat-quantized reset
 # columns (constants.bq_extra_resets — 0 at the live geometry)
-NUM_INT_COLS_BASE = 21
+NUM_INT_COLS_BASE = 19
 NUM_F32_COLS = 15
 
 # the native core writes these matrices with a HARDCODED layout
@@ -91,7 +91,7 @@ def load() -> Optional[ctypes.CDLL]:
         return _lib
     from .._native import load_native
 
-    lib = load_native("zl_hostcore", "zl_hostcore_abi_version", 5)
+    lib = load_native("zl_hostcore", "zl_hostcore_abi_version", 6)
     if lib is None:
         return None
     lib.zl_voice_update.restype = ctypes.c_int64
@@ -118,9 +118,8 @@ def available() -> bool:
 def _build_state(pool, lane_enabled: np.ndarray):
     """ctypes _State for (pool, lane_enabled), cached on the pool.
 
-    The pointer marshalling (33 data_as casts) measured ~0.3 ms/call at
-    V=1024 — the dominant host cost of a 16-block lookahead horizon
-    (tools/tpu_probe4_r4.py host_ms). Pool arrays are mutated IN PLACE on
+    The pointer marshalling (33 data_as casts) would otherwise run on
+    every call of a 16-block lookahead horizon. Pool arrays are mutated IN PLACE on
     the native path (restore_state/kill/note_on write through; the numpy
     advance(), which rebinds, never runs when use_native_host is on), so
     a cached struct stays valid; an identity sweep re-marshals if any
@@ -172,7 +171,7 @@ def voice_update(
 ):
     """Native build_program + advance in one pass.
 
-    Returns (prog_i [V,21+W] i32, prog_f [V,15] f32, died_info) where
+    Returns (prog_i [V,19+W] i32, prog_f [V,15] f32, died_info) where
     died_info is a list of (voice, clip_id, position_id); the caller must
     finish the kill (this function already read the ids, then kills).
     """
@@ -218,8 +217,8 @@ def horizon_update(
     lane_enabled: np.ndarray,
 ):
     """The whole H-block lookahead-horizon host sim in ONE native call
-    (engine._sim_horizon_bundle's hot path — VERDICT r4 #2: the per-slice
-    ctypes calls + numpy dynamics packing cost ~3.5 ms/horizon at V=1024).
+    (engine._sim_horizon_bundle's hot path, instead of per-slice ctypes
+    calls plus numpy dynamics packing).
 
     Returns (prog_i0, prog_f0, dyn, snaps, died_lists) — bit-identical to
     running `voice_update` per slice + ops/voice.pack_horizon_dynamics +

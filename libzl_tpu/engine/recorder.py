@@ -116,8 +116,8 @@ class DiskRecorder:
         self._thread.start()
 
     # push() waits at most this long for queue space before dropping a
-    # block. Bounded so a dead writer can never freeze the engine (ADVICE
-    # r1), but long enough that a faster-than-realtime producer (offline
+    # block. Bounded so a dead writer can never freeze the engine,
+    # but long enough that a faster-than-realtime producer (offline
     # bounce via step_blocks, FileSink renders) simply back-pressures on a
     # healthy writer instead of silently losing audio.
     PUSH_TIMEOUT_S = 2.0

@@ -2,19 +2,18 @@
 
 The reference keeps one decoded juce::AudioBuffer per clip
 (lib/SamplerSynthSound.cpp:28-59, preferring a memory-mapped reader) and the
-voice loop reads it with raw pointers. The TPU build packs every loaded sound
-into ONE flat float32 array resident in HBM; each sound is a slot with a
-base offset. Voices address samples as `base + position`, so the render
+voice loop reads it with raw pointers. This build packs every loaded sound
+into ONE flat float32 array resident in device memory; each sound is a slot
+with a base offset. Voices address samples as `base + position`, so the render
 kernel does a single gather into one array regardless of how many sounds are
 loaded — no per-sound control flow, no recompiles when sounds are added
 (capacity is pre-allocated; growth doubles capacity and recompiles at most
 O(log n) times).
 
-The array is stored channel-major ("planar", shape [2, N]): on TPU the last
-axis maps to the 128-lane dimension, so the fetch kernel's window DMAs and
-slab slices are lane-aligned runs along the sample axis — an interleaved
-[N, 2] layout would put the 2-wide channel axis on the lanes and violate
-Mosaic's slice-alignment rules (and waste 126/128 of each lane fetch).
+The host array is stored channel-major ("planar", shape [2, N]), which the
+numpy mirror indexes directly; the device copy is its interleaved [N, 2]
+transpose, so one row gather fetches a stereo pair
+(engine._sound_data_for_backend).
 
 Mono sources are duplicated to stereo on load: the reference computes the
 right channel of mono material from the identical expression as the left
@@ -44,27 +43,12 @@ class SoundSlot:
 # One guard frame past the end so `pos+1` of the final valid fetch index is
 # in-bounds without branching (the kernel masks `pos < length-1` anyway).
 _GUARD_FRAMES = 8
-# The Pallas fetch kernel DMAs whole fetch regions anchored at any allocated
-# 512-row boundary; keep a tail covering the largest region so the DMA never
-# runs off the array (ops/fetch_pallas.region_rows; 5120 rows at B=1024).
-# Engines with larger windows blocks pass a bigger `tail_guard` (see
-# region_tail_guard / AudioEngine.__init__).
-_TAIL_GUARD = 6144
-
-
-def region_tail_guard(block_frames: int, max_pitch_ratio: float) -> int:
-    """Tail rows needed for the windows kernel's region DMAs — mirrors
-    ops/fetch_pallas.region_rows without importing the pallas machinery."""
-    span = int(max_pitch_ratio * block_frames) + 2
-    return ((span + 511) // 512) * 512 + 512
 
 
 class SoundBank:
     """Packs sounds into one planar [2, N] float32 buffer + slot table."""
 
-    def __init__(self, capacity_frames: int = 1 << 22,
-                 tail_guard: int = _TAIL_GUARD):
-        self._tail_guard = max(int(tail_guard), _TAIL_GUARD)
+    def __init__(self, capacity_frames: int = 1 << 22):
         self._data = np.zeros((2, capacity_frames), dtype=np.float32)
         self._used = 0
         self._slots: list[SoundSlot] = []
@@ -88,8 +72,8 @@ class SoundBank:
         Shared by load and replace so the guard-fill rule cannot drift."""
         length = samples.shape[0]
         padded = length + _GUARD_FRAMES
-        if self._used + padded > self.capacity_frames - self._tail_guard:
-            self._grow(self._used + padded + self._tail_guard)
+        if self._used + padded > self.capacity_frames:
+            self._grow(self._used + padded)
         base = self._used
         self._data[:, base : base + length] = samples.T
         self._data[:, base + length : base + padded] = 0.0
@@ -163,7 +147,8 @@ class SoundBank:
         new_cap = self.capacity_frames
         while new_cap < min_frames:
             new_cap *= 2
-        # keep the flat array a multiple of the fetch-window block size
+        # capacity stays a multiple of 1024 frames (the compiled bank shape
+        # changes only on growth)
         new_cap = ((new_cap + 1023) // 1024) * 1024
         grown = np.zeros((2, new_cap), dtype=np.float32)
         grown[:, : self._used] = self._data[:, : self._used]

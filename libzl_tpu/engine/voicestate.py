@@ -2,8 +2,8 @@
 
 The reference mutates voice state *inside* the render callback
 (lib/SamplerSynthVoice.cpp:174-270: position advance, loop wraps, ADSR
-transitions, auto-release, hard stops). On TPU the render must be a pure
-function, so all control flow moves HERE, to the host, at block granularity:
+transitions, auto-release, hard stops). On the device the render must be a
+pure function, so all control flow moves HERE, to the host, at block granularity:
 
 - The pool holds every per-voice quantity in numpy struct-of-arrays
   (float64/int64 for time and position bookkeeping, f32/int32 mirrors of
@@ -36,9 +36,7 @@ import dataclasses
 import numpy as np
 
 from ..constants import (
-    MAX_PITCH_RATIO,
     MAX_SEGMENTS_PER_BLOCK,
-    WINDOW_ANCHOR_BLOCK,
     bq_extra_resets,
 )
 from ..ops import adsr as adsr_ops
@@ -159,9 +157,8 @@ class VoicePool:
         self.source_rate[v] = source_rate
 
         # UNBOUNDED like the reference (lib/SamplerSynthVoice.cpp:115-116:
-        # no ceiling — note 36 above root plays at 8x). Ratios beyond the
-        # engine's declared windows-kernel envelope dispatch through the
-        # slab-free gather fetch (engine._render_rmax returns None).
+        # no ceiling — note 36 above root plays at 8x); the gather fetch
+        # serves any ratio.
         ratio = pitch_ratio(midi_note, root_note, source_rate, self.output_rate)
         self.rate_int[v] = int(ratio)
         self.rate_frac[v] = np.float32(ratio - int(ratio))
@@ -459,19 +456,11 @@ class VoicePool:
         # ops/adsr.envelope_block)
         release_frames_local = np.clip(release_frames - start_f, 0, _BIG)
 
-        # fetch-window anchors for the Pallas streaming kernel
-        # (ops/fetch_pallas.py; constant mirrored in constants.py so this
-        # realtime path never imports the pallas machinery)
-        win_blk_a = (self.base + seg_pos_int[:, 0]) // WINDOW_ANCHOR_BLOCK
-        win_blk_b = (self.base + istart64) // WINDOW_ANCHOR_BLOCK
-
         # --- fill program arrays ---
         prog = prog._replace(
             active=act.astype(np.int32),
             base=self.base.astype(np.int32),
             len_minus1=np.maximum(self.length - 1, 1).astype(np.int32),
-            win_blk_a=np.maximum(win_blk_a, 0).astype(np.int32),
-            win_blk_b=np.maximum(win_blk_b, 0).astype(np.int32),
             seg_start=np.minimum(seg_start, B).astype(np.int32),
             seg_pos_int=seg_pos_int.astype(np.int32),
             seg_pos_frac=seg_pos_frac,

@@ -4,7 +4,7 @@ Python equivalent of lib/AudioLevels.{h,cpp}. The reference runs 13 JACK
 tap clients (SystemCapture, SystemPlayback, SystemRecorder, Channel1-10,
 lib/AudioLevels.cpp:279-318) and scans their buffers on a 50 ms timer with a
 fixed-point x2^17 peak trick, dBFS conversion with a -200 floor, and a x0.9
-peak-hold decay (:330-412). In the TPU build the per-block peaks arrive free
+peak-hold decay (:330-412). In this build the per-block peaks arrive free
 from the render graph (ops/meters.py); this object reproduces the fixed-point
 accumulation, decay cadence and dBFS outputs, and owns the disk recorders:
 
@@ -283,8 +283,8 @@ class AudioLevels:
         self._ports_recorder.stop()
         for r in self._channel_recorders:
             r.stop()
-        # take-scoped snapshots die with the take (ADVICE r3: stale
-        # _active_channels persisting after stop was latent state)
+        # take-scoped snapshots die with the take (stale _active_channels
+        # persisting after stop would be latent state)
         self._active_record_ports = []
         self._active_channels = []
 

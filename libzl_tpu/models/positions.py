@@ -71,7 +71,7 @@ class PositionsModel:
         """Batched per-block update (one clock read, one peak-change check)
         — the engine pushes every active voice's gain/progress each session
         update; doing it row-by-row was O(voices * positions) from the
-        per-call peak_gain scans (VERDICT r1 weak #7)."""
+        per-call peak_gain scans."""
         now = self._clock()
         positions = self._positions
         old_peak = (

@@ -1,15 +1,15 @@
-"""Multi-chip scaling: shard the voice axis over a device mesh.
+"""Multi-device scaling: shard the voice axis over a device mesh.
 
 The reference scales by handing each sampler channel its own JACK client so
-the OS can schedule them in parallel (lib/SamplerSynth.cpp:88-114). The TPU
-equivalent (SURVEY.md §2 "Distributed communication backend") shards the
-*voice axis* of the render grid across chips with jax.sharding: every chip
-renders V/n voices, and the only cross-device traffic is the per-lane
-mixdown contraction — XLA lowers the one-hot [C,V] x [V,B*2] matmul over a
-sharded V to a local matmul + psum over ICI, the moral equivalent of JACK's
-additive port mixing.
+the OS can schedule them in parallel (lib/SamplerSynth.cpp:88-114). The
+equivalent here (SURVEY.md §2 "Distributed communication backend") shards
+the *voice axis* of the render grid across devices with jax.sharding: every
+device renders V/n voices, and the only cross-device traffic is the
+per-lane mixdown contraction — a local one-hot [C,V] x [V,B*2] matmul +
+psum (NCCL over NVLink on a multi-GPU host), the moral equivalent of JACK's
+additive port mixing. The mesh is 1-D over jax.devices().
 
-Sound memory is replicated (every chip may need any sample); per-voice
+Sound memory is replicated (every device may need any sample); per-voice
 program arrays are sharded; mixes/meters come back replicated; per-voice
 peaks stay sharded.
 """
@@ -54,7 +54,7 @@ def program_sharding(mesh: Mesh) -> voice_ops.VoiceProgram:
         inv_rel=v, rel_log2=v, release_frame=v, rel_mode=v,
     )
     return voice_ops.VoiceProgram(
-        active=v, base=v, len_minus1=v, win_blk_a=v, win_blk_b=v,
+        active=v, base=v, len_minus1=v,
         seg_start=vs, seg_pos_int=vs, seg_pos_frac=vs,
         rate_int=v, rate_frac=v, start_frame=v, stop_frame=v,
         gain=v, clip_volume=v, pan=v, lane=v,
@@ -102,13 +102,10 @@ def make_shardmap_packed_render(
     mesh: Mesh,
     block_frames: int = DEFAULT_BLOCK_FRAMES,
     quirk_gain: bool = False,
-    fetch: str = "gather",
-    max_pitch_ratio: float = 4.0,
 ):
     """shard_map variant of the packed render: each device renders its local
-    voice shard (any fetch path, including the Pallas windows kernel — the
-    kernel runs per shard, no partitioning rule needed), the additive lane
-    mixdown is an explicit psum over ICI, and the strip/meter tail runs
+    voice shard (the same render_voices as single-device), the additive
+    lane mixdown is an explicit psum, and the strip/meter tail runs
     replicated. Bit-equal to the unsharded engine because the per-lane
     reduction tree (local one-hot matmul, then psum over ordered shards) is
     mesh-invariant for these values (test_sharding.py asserts it)."""
@@ -123,8 +120,7 @@ def make_shardmap_packed_render(
         strips = voice_ops.unpack_strips(strips_packed)
         lane_mix, voice_peaks = voice_ops.render_voices(
             jnp, sound_data, prog, block_frames,
-            quirk_gain=quirk_gain, fetch=fetch,
-            max_pitch_ratio=max_pitch_ratio,
+            quirk_gain=quirk_gain,
         )
         lane_mix = jax.lax.psum(lane_mix, VOICE_AXIS)
         return render_mod.finish_block(jnp, lane_mix, strips, voice_peaks)
@@ -149,22 +145,19 @@ def make_shardmap_horizon_render(
     block_frames: int = DEFAULT_BLOCK_FRAMES,
     slices: int = 16,
     quirk_gain: bool = False,
-    fetch: str = "gather",
-    max_pitch_ratio: float = 4.0,
     base_cols: int = 0,
 ):
     """shard_map lookahead-horizon render: the compact horizon upload
     (base program [V, K] and dynamics [V, 1+(H-1)*D] concatenated into
     ONE voice-sharded buffer when `base_cols` > 0, mirroring the
-    single-chip render_horizon_onebuf — one host->device transfer per
+    single-device render_horizon_onebuf — one host->device transfer per
     horizon) reconstructs each slice's per-block program locally per
-    device, the additive lane mixdown of ALL slices rides ONE psum over
-    ICI (a stacked [slices, C, B, 2] collective — per-horizon traffic,
-    not per-block), and the strip/meter tail runs replicated per slice.
-    Each slice's math is identical to the single-chip horizon, so mesh
-    output is bit-equal to the unsharded engine — the lookahead and the
-    mesh compose instead of forking the perf architecture (VERDICT r3
-    next-round #2). base_cols=0 keeps the two-buffer (base, dyn)
+    device, the additive lane mixdown of ALL slices rides ONE psum (a
+    stacked [slices, C, B, 2] collective — per-horizon traffic, not
+    per-block), and the strip/meter tail runs replicated per slice. Each
+    slice's math is identical to the single-device horizon, so mesh output
+    equals the unsharded engine's — the lookahead and the mesh compose
+    instead of forking. base_cols=0 keeps the two-buffer (base, dyn)
     signature for oracle tests."""
     import jax.numpy as jnp
     from jax import shard_map
@@ -178,8 +171,7 @@ def make_shardmap_horizon_render(
         for prog in progs:
             lm, vp = voice_ops.render_voices(
                 jnp, sound_data, prog, block_frames,
-                quirk_gain=quirk_gain, fetch=fetch,
-                max_pitch_ratio=max_pitch_ratio,
+                quirk_gain=quirk_gain,
             )
             lane_mixes.append(lm)
             peaks.append(vp)
@@ -220,8 +212,6 @@ def make_sharded_packed_render(
     mesh: Mesh,
     block_frames: int = DEFAULT_BLOCK_FRAMES,
     quirk_gain: bool = False,
-    fetch: str = "gather",
-    max_pitch_ratio: float = 4.0,
 ):
     """Voice-sharded render over the engine's packed dispatch format
     (ops/voice.pack_program): program matrices shard on their voice axis,
@@ -243,8 +233,7 @@ def make_sharded_packed_render(
         strips = voice_ops.unpack_strips(strips_packed)
         return render_mod.render_block_math(
             jnp, sound_data, prog, strips, block_frames,
-            quirk_gain=quirk_gain, fetch=fetch,
-            max_pitch_ratio=max_pitch_ratio,
+            quirk_gain=quirk_gain,
         )
 
     return jax.jit(

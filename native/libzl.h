@@ -1,5 +1,5 @@
 /*
- * libzl.h — C ABI of the TPU-native libzl engine.
+ * libzl.h — C ABI of the JAX libzl engine.
  *
  * Symbol-compatible with the reference engine's public header
  * (reference lib/libzl.h:18-179): the same extern "C" function names and

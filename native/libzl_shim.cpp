@@ -1,5 +1,5 @@
 /*
- * libzl_shim.cpp — C++ implementation of the libzl C ABI over the TPU engine.
+ * libzl_shim.cpp — C++ implementation of the libzl C ABI over the JAX engine.
  *
  * The reference implements this layer by marshalling every call onto a JUCE
  * message thread and poking tracktion/JACK singletons
@@ -185,7 +185,7 @@ void reloadZynthianConfiguration(void) {
 }
 
 void registerGraphicTypes(void) {
-  // The reference registers QML item types (lib/libzl.cpp:421-423); the TPU
+  // The reference registers QML item types (lib/libzl.cpp:421-423); this
   // build has no QML runtime — waveform data is served by
   // libzl_tpu.models.waveform instead. Intentionally a no-op.
 }

@@ -36,13 +36,13 @@ constexpr int kIdle = 0, kAttack = 1, kDecay = 2, kSustain = 3, kRelease = 4;
 constexpr int kRelModeLinear = 0, kRelModeExp = 1;
 
 // packed program column layout (ops/voice.pack_program)
-// ints: active, base, len_minus1, win_blk_a, win_blk_b, rate_int,
-//       start_frame, stop_frame, lane, stage0, release_frame, rel_mode,
-//       seg_start[4], seg_pos_int[4], loop_period, bq_reset[W]
-//       -> 21 + W columns (W = Params.n_bq_extra, static per engine)
+// ints: active, base, len_minus1, rate_int, start_frame, stop_frame, lane,
+//       stage0, release_frame, rel_mode, seg_start[4], seg_pos_int[4],
+//       loop_period, bq_reset[W]
+//       -> 19 + W columns (W = Params.n_bq_extra, static per engine)
 // floats: rate_frac, gain, clip_volume, pan, env0, a_rate, d_rate, sustain,
 //         rel_rate, inv_rel, rel_log2, seg_pos_frac[4]        -> 15 columns
-constexpr int kNIBase = 21;
+constexpr int kNIBase = 19;
 constexpr int kNF = 15;
 
 struct State {
@@ -159,9 +159,9 @@ static inline bool update_voice(const Params *p, State *s, int64_t v,
     std::memset(pf, 0, sizeof(float) * kNF);
     // inactive program row defaults
     pi[2] = 1;                       // len_minus1
-    pi[7] = (int32_t)B;              // stop_frame
-    pi[10] = (int32_t)B;             // release_frame
-    for (int j = 0; j < kSegments; ++j) pi[12 + j] = (int32_t)B;
+    pi[5] = (int32_t)B;              // stop_frame
+    pi[8] = (int32_t)B;              // release_frame
+    for (int j = 0; j < kSegments; ++j) pi[10 + j] = (int32_t)B;
     for (int j = 0; j < W; ++j) pi[kNIBase + j] = (int32_t)B;
 
     bool act = s->active[v] && s->lane_enabled[s->lane[v]];
@@ -302,25 +302,21 @@ static inline bool update_voice(const Params *p, State *s, int64_t v,
     pi[0] = 1;                                  // active
     pi[1] = s->base[v];
     pi[2] = std::max(s->length[v] - 1, (int32_t)1);
-    pi[3] = (int32_t)std::max(
-        (s->base[v] + seg_pos_int[0]) / 512, (int64_t)0);  // win_blk_a
-    pi[4] = (int32_t)std::max(
-        (s->base[v] + s->istart[v]) / 512, (int64_t)0);    // win_blk_b
-    pi[5] = s->rate_int[v];
-    pi[6] = (int32_t)start_f;
-    pi[7] = (int32_t)stop_frame;
-    pi[8] = s->lane[v];
-    pi[9] = s->stage[v];
-    pi[10] = (int32_t)release_local;
-    pi[11] = rel_mode_prog;
+    pi[3] = s->rate_int[v];
+    pi[4] = (int32_t)start_f;
+    pi[5] = (int32_t)stop_frame;
+    pi[6] = s->lane[v];
+    pi[7] = s->stage[v];
+    pi[8] = (int32_t)release_local;
+    pi[9] = rel_mode_prog;
     for (int j = 0; j < kSegments; ++j) {
-      pi[12 + j] = (int32_t)std::min(seg_start[j], B);
-      pi[16 + j] = (int32_t)seg_pos_int[j];
+      pi[10 + j] = (int32_t)std::min(seg_start[j], B);
+      pi[14 + j] = (int32_t)seg_pos_int[j];
     }
     // loop-containment column (ops/voice.py positions_block): positional
     // loops needing more wraps than the segment schedule can express wrap
     // exactly via j mod loop_period inside the wrap segments
-    pi[20] = is_pos ? (int32_t)pos_period : 0;
+    pi[18] = is_pos ? (int32_t)pos_period : 0;
     pf[0] = s->rate_frac[v];
     pf[1] = s->gain[v];
     pf[2] = s->clip_volume[v];
@@ -497,9 +493,9 @@ constexpr int32_t kRf16 = 0xFFFF;        // 16-bit release field / sentinel
 constexpr int32_t kReleaseNone = 1 << 30;  // RELEASE_NONE
 // packed column indices (ops/voice.py PI_*/PF_*; static layout, asserted
 // against the python side at import by engine/hostcore.py)
-constexpr int kPiActive = 0, kPiStart = 6, kPiStop = 7, kPiStage0 = 9,
-              kPiRelease = 10, kPiRelMode = 11, kPiSegStart = 12,
-              kPiSegPos = 16, kPiBq = kNIBase;
+constexpr int kPiActive = 0, kPiStart = 4, kPiStop = 5, kPiStage0 = 7,
+              kPiRelease = 8, kPiRelMode = 9, kPiSegStart = 10,
+              kPiSegPos = 14, kPiBq = kNIBase;
 constexpr int kPfEnv0 = 4, kPfRelRate = 8, kPfSegFrac = 11;
 
 }  // namespace
@@ -509,7 +505,7 @@ extern "C" {
 /*
  * One-pass build_program + advance for all voices.
  *
- * Writes the packed program matrices (prog_i [V, 21+W] int32,
+ * Writes the packed program matrices (prog_i [V, 19+W] int32,
  * prog_f [V, 15] float32) for the device dispatch, then advances the state
  * arrays past the block exactly as engine/voicestate.VoicePool.advance()
  * does. `died_out` receives indices of voices that stopped (count
@@ -530,14 +526,13 @@ int64_t zl_voice_update(const Params *p, State *s, int32_t *prog_i,
 }
 
 /*
- * The whole lookahead-horizon host sim in ONE call (VERDICT r4 #2: the 16
- * Python->ctypes per-block sims + numpy dynamics packing dominated the
- * bit-exact live path's host cost at ~3.5 ms/horizon).
+ * The whole lookahead-horizon host sim in ONE call, instead of H
+ * Python->ctypes per-block sims plus numpy dynamics packing.
  *
  * Simulates H consecutive blocks from the current pool state — exactly the
  * per-block update_voice chain, so device programs are bit-identical to
  * per-block dispatch — writing:
- *   - prog_i0/prog_f0: slice 0's full packed program [V, 21+W]/[V, 15]
+ *   - prog_i0/prog_f0: slice 0's full packed program [V, 19+W]/[V, 15]
  *   - dyn: the compact dynamics matrix [V, 1 + (H-1)*D] of
  *     ops/voice.pack_horizon_dynamics (col 0 = istart; per tail slice:
  *     pos anchor, pos_frac/env0/rel_rate bits, 16-bit wrap/stop pairs,
@@ -639,6 +634,6 @@ int64_t zl_horizon_update(const Params *p, State *s, int64_t H,
   return 0;
 }
 
-int zl_hostcore_abi_version(void) { return 5; }
+int zl_hostcore_abi_version(void) { return 6; }
 
 }  // extern "C"

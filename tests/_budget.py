@@ -1,4 +1,4 @@
-"""Suite wall-time budget for randomized/soak-style tests (VERDICT r4 #4).
+"""Suite wall-time budget for randomized/soak-style tests.
 
 The long differentials and in-suite soaks are the inner loop of every
 development session, so their iteration counts default to a QUICK value

@@ -325,7 +325,7 @@ def test_bounce_drain_with_global_recording(tmp_path):
 def test_pipelined_drain_async_jax(tmp_path):
     """On the jax backend the full-drain flush goes ASYNC: the batch's
     device->host copy starts immediately but delivery waits one drain
-    window (probe 7: the relay copy overlaps rendering). The delivered
+    window (the copy overlaps rendering). The delivered
     stream must still be bit-identical and in order, the in-flight batch
     must land on demanded flushes (record toggles, step_blocks end), and
     the one-window latency must be observable (that's the pipelining)."""
@@ -469,7 +469,7 @@ def test_demanded_flush_races_pipelined_flush():
 def test_drain_shape_warmup_precompiles_flush_concat():
     """_warm_drain_shapes must enumerate exactly the signatures the real
     drain windows hit: driving full pipelined flushes afterwards adds ZERO
-    new compiles to the jitted concat (a mid-performance relay compile is
+    new compiles to the jitted concat (a mid-performance compile is
     seconds of pump stall)."""
     import numpy as np
 

@@ -153,7 +153,7 @@ def test_env_subcommand(capsys):
     rc = main(["env", "--backend", "numpy"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "fetch resolution" in out
+    assert "backend: numpy on cpu" in out
     assert "native host core" in out
     assert "stretch backend" in out
 
@@ -264,7 +264,7 @@ def test_env_and_render_jax_backend(tmp_path, capsys):
     rc = main(["env", "--backend", "jax"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "jax backend:" in out and "fetch resolution" in out
+    assert "backend: jax on cpu" in out and "device(s)" in out
 
     src = tmp_path / "in.wav"
     out_wav = tmp_path / "out.wav"
@@ -354,19 +354,22 @@ def test_play_loop_until_interrupt(tmp_path, monkeypatch):
 
 
 def test_env_windows_kernel_report(monkeypatch, capsys):
-    """The env command's windows-kernel + roofline report (normally a
-    TPU-only branch) — forced by pinning the engine's resolved fetch."""
+    """The env command reports the chosen backend and the device it renders
+    on — here a GPU device faked under the jax backend — plus the compile
+    cache directory (JAX_COMPILATION_CACHE_DIR when set)."""
     import libzl_tpu.engine.engine as engine_mod
 
     real_engine = engine_mod.AudioEngine
 
-    class ForcedWindows(real_engine):
+    class FakeGpu(real_engine):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
-            self.fetch = "windows:highest,grid"
+            self.device = {"platform": "gpu", "device_kind": "NVIDIA H100",
+                           "device_count": 1}
 
-    monkeypatch.setattr(engine_mod, "AudioEngine", ForcedWindows)
-    assert main(["env", "--backend", "numpy"]) == 0
+    monkeypatch.setattr(engine_mod, "AudioEngine", FakeGpu)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/cache/here")
+    assert main(["env", "--backend", "jax"]) == 0
     out = capsys.readouterr().out
-    assert "windows kernel: precision=highest variant=grid" in out
-    assert "fetch roofline" in out and "skinny-dot" in out
+    assert "backend: jax on gpu (NVIDIA H100, 1 device(s))" in out
+    assert "compile cache: /cache/here" in out

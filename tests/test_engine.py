@@ -214,11 +214,10 @@ def test_voices_per_lane_cap():
 
 def test_no_retracing_across_blocks():
     """Per-block variation must be array values, never shapes: the packed
-    render compiles exactly once per (block size, fetch mode)."""
+    render compiles exactly once per block size."""
     from libzl_tpu.engine import render as render_mod
 
-    engine = AudioEngine(sample_rate=SR, backend="jax", num_voices=16,
-                         fetch="gather")
+    engine = AudioEngine(sample_rate=SR, backend="jax", num_voices=16)
     clip = make_clip(engine, seconds=0.3)
     engine.start_transport(bpm=97)
     clip.play(loop=True, midi_channel=0)
@@ -266,8 +265,7 @@ def test_int16_bank_backend_equality():
     from libzl_tpu.models.clip import ClipAudioSource
 
     def run(backend, dtype):
-        # per-block: bank quantization is a fetch-path property; the
-        # int16 horizon path is covered by the windows-kernel tests
+        # per-block: bank quantization is a fetch-path property
         e = AudioEngine(sample_rate=SR, backend=backend, num_voices=16,
                         bank_dtype=dtype, lookahead=0)
         t = np.arange(12000) / SR
@@ -287,172 +285,55 @@ def test_int16_bank_backend_equality():
     assert np.abs(f32n - i16n).max() < 1e-4
 
 
-def test_max_pitch_ratio_option():
-    """A declared transposition envelope renders identically to the default
-    engine for in-envelope content (the windows kernel sizes its slab to
-    it — ops/fetch_pallas.slab_cols); OUT-of-envelope notes are not
-    clamped (the reference computes pitchRatio with no ceiling,
-    lib/SamplerSynthVoice.cpp:115-116) — they dispatch through the
-    slab-free gather fallback and render full-range."""
-    import numpy as np
-
-    from libzl_tpu.io.wav import AudioData
-    from libzl_tpu.models.clip import ClipAudioSource
-
-    def run(**kw):
-        # lookahead=0: slab sizing + the gather fallback are per-block
-        # dispatch properties; the horizon variant is covered by
-        # test_over_envelope_note_gather_fallback_bit_equal (suite budget)
-        e = AudioEngine(sample_rate=SR, backend="jax", num_voices=16,
-                        fetch="windows", lookahead=0, **kw)
-        t = np.arange(12000) / SR
-        c = ClipAudioSource(e, audio=AudioData(
-            (0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)[:, None],
-            SR))
-        e.start_transport(bpm=120)
-        from libzl_tpu.engine.commands import ClipCommand
-
-        cmd = ClipCommand.channel(c.id, 1)
-        cmd.midi_note = 67  # ratio 1.5: inside a 2.0 envelope
-        cmd.change_volume = True
-        cmd.volume = 1.0
-        cmd.looping = True
-        cmd.start_playback = True
-        e.schedule_clip_command(cmd, 0)
-        return np.concatenate([
-            np.asarray(e.process_block().outputs.master) for _ in range(12)
-        ]), e
-
-    full, e4 = run()
-    tight, e2 = run(max_pitch_ratio=2.0)
-    assert e4.max_pitch_ratio == 4.0 and e2.max_pitch_ratio == 2.0
-    np.testing.assert_allclose(tight, full, rtol=1e-5, atol=1e-7)
-
-    # out-of-envelope notes keep their full ratio and route through the
-    # gather fallback — the audio matches the in-envelope engines (same
-    # ratio-1.5 note) to windows-vs-gather kernel tolerance
-    over, e1 = run(max_pitch_ratio=1.0)
-    v = int(e1.pool.active.argmax())
-    got = float(e1.pool.rate_int[v] + e1.pool.rate_frac[v])
-    assert abs(got - 2.0 ** (7 / 12)) < 1e-6, got  # unclamped +7 semitones
-    np.testing.assert_allclose(over, full, rtol=1e-4, atol=1e-5)
-
-    import pytest as _pytest
-    with _pytest.raises(ValueError):
-        AudioEngine(sample_rate=SR, backend="numpy", num_voices=8,
-                    max_pitch_ratio=8.0)
-
-
 def test_bank_capacity_check():
     """A replicated sound bank past 60% of per-device memory fails loudly
     at upload time with actionable guidance (PARITY.md round-3 table);
-    within budget it passes silently. Exercised against a stub device so
+    within budget it passes silently. Every device of a mesh must hold the
+    bank, so the smallest one decides. Exercised against stub devices so
     the test does not depend on the host's real memory stats."""
     import types
 
     e = AudioEngine(sample_rate=SR, backend="jax", num_voices=8)
     bank_bytes = e.bank.data.size * 4  # float32 default
 
-    def fake_jax(limit):
-        dev = types.SimpleNamespace(
+    def dev(limit):
+        return types.SimpleNamespace(
             memory_stats=lambda: {"bytes_limit": limit})
-        return types.SimpleNamespace(local_devices=lambda: [dev])
 
+    tight = int(bank_bytes / 0.6) - 1
     # bank is 60%+ of a tiny device: loud failure naming the remedy
     with pytest.raises(RuntimeError, match="int16"):
-        e._check_bank_capacity(fake_jax(int(bank_bytes / 0.6) - 1))
+        e._check_bank_capacity([dev(tight)])
+    # one small device in a mesh is enough to fail
+    with pytest.raises(RuntimeError, match="int16"):
+        e._check_bank_capacity([dev(bank_bytes * 4), dev(tight)])
     # plenty of room: no-op
-    e._check_bank_capacity(fake_jax(int(bank_bytes * 4)))
-    # devices that report no stats (CPU, some relays): check is skipped
-    dev = types.SimpleNamespace(memory_stats=lambda: None)
-    e._check_bank_capacity(
-        types.SimpleNamespace(local_devices=lambda: [dev]))
+    e._check_bank_capacity([dev(int(bank_bytes * 4))])
+    # devices that report no stats (the CPU): check is skipped
+    e._check_bank_capacity([types.SimpleNamespace(memory_stats=lambda: None)])
+    assert len(e._render_devices()) == 1  # single-device engine
 
     # int16 banks count 2 bytes/sample: the same limit that fails f32
     # passes at half the bytes
     e16 = AudioEngine(sample_rate=SR, backend="jax", num_voices=8,
                       bank_dtype="int16")
-    e16._check_bank_capacity(fake_jax(int(bank_bytes / 0.6) - 1))
-
-
-def test_ratio_ladder_dispatch():
-    """The ratio ladder dispatches the narrow-slab kernel variant when every
-    active voice's pitch ratio fits the lower rung, and the wide variant
-    otherwise — outputs identical either way (the rung only changes slab
-    sizing, not the interpolation taps)."""
-    import numpy as np
-
-    from libzl_tpu.engine.commands import ClipCommand
-    from libzl_tpu.io.wav import AudioData
-    from libzl_tpu.models.clip import ClipAudioSource
-
-    def run(note, **kw):
-        e = AudioEngine(sample_rate=SR, backend="jax", num_voices=16,
-                        fetch="windows", **kw)
-        t = np.arange(12000) / SR
-        c = ClipAudioSource(e, audio=AudioData(
-            (0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)[:, None],
-            SR))
-        e.start_transport(bpm=120)
-        cmd = ClipCommand.channel(c.id, 1)
-        cmd.midi_note = note
-        cmd.change_volume = True
-        cmd.volume = 1.0
-        cmd.looping = True
-        cmd.start_playback = True
-        e.schedule_clip_command(cmd, 0)
-        out = np.concatenate([
-            np.asarray(e.process_block().outputs.master) for _ in range(8)
-        ])
-        return out, e
-
-    # ratio 1.5 (note 67 vs root 60): fits the 2.0 rung
-    low, e = run(67)
-    assert e._ratio_ladder == [2.0, 4.0]
-    prog = e.pool.build_program(
-        block_start_sample=float(e.clock.sample_position),
-        tick_anchor_sample=e.clock.anchor_sample,
-        tick_anchor=e.clock.anchor_tick,
-        samples_per_tick=e.clock.samples_per_tick,
-        lane_enabled=e.lane_enabled,
-    )
-    from libzl_tpu.ops.voice import pack_program
-
-    pi, pf = pack_program(prog)
-    assert e._render_rmax(pi, pf) == 2.0
-
-    # ratio 2^(19/12) ~ 3.0 (note 79): needs the top rung
-    hi, e_hi = run(79)
-    prog = e_hi.pool.build_program(
-        block_start_sample=float(e_hi.clock.sample_position),
-        tick_anchor_sample=e_hi.clock.anchor_sample,
-        tick_anchor=e_hi.clock.anchor_tick,
-        samples_per_tick=e_hi.clock.samples_per_tick,
-        lane_enabled=e_hi.lane_enabled,
-    )
-    pi, pf = pack_program(prog)
-    assert e_hi._render_rmax(pi, pf) == 4.0
-
-    # ladder off: same audio (dispatching a rung never changes the output)
-    low_off, e_off = run(67, ratio_ladder="off")
-    assert e_off._ratio_ladder == [4.0]
-    np.testing.assert_allclose(low, low_off, rtol=1e-5, atol=1e-7)
-
-
+    e16._check_bank_capacity([dev(tight)])
 def test_compile_cache_env(tmp_path, monkeypatch):
-    """LIBZL_TPU_COMPILE_CACHE persists XLA compiles across processes (the
-    deployment fast-boot path; no-op without the env var)."""
+    """The persistent XLA compile cache follows JAX_COMPILATION_CACHE_DIR
+    when it is set (libzl_tpu.device.use_compile_cache): a jax engine in a
+    process with no cache configured writes its compiles there."""
     import glob
 
     import jax
 
-    monkeypatch.setenv("LIBZL_TPU_COMPILE_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     old_dir = jax.config.jax_compilation_cache_dir
     old_min = jax.config.jax_persistent_cache_min_compile_time_secs
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    # jax initializes the persistent cache ONCE (the suite's conftest
-    # already did, pointing at the shared suite cache); reset so the
-    # engine's dir update actually takes effect for this process
+    # a fresh process: no directory configured yet (the suite's conftest
+    # configured one, and jax initializes the persistent cache ONCE — reset
+    # so the engine's directory takes effect for this process)
+    jax.config.update("jax_compilation_cache_dir", None)
     from jax.experimental.compilation_cache import compilation_cache as cc
 
     try:
@@ -462,6 +343,7 @@ def test_compile_cache_env(tmp_path, monkeypatch):
         # would make this assertion order-dependent
         e = AudioEngine(sample_rate=SR, num_voices=8, backend="jax",
                         block_frames=352)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
         cc.reset_cache()  # re-init at the engine-configured directory
         x = (0.3 * np.sin(2 * np.pi * 220 * np.arange(SR // 10) / SR)
              ).astype(np.float32)[:, None]
@@ -475,14 +357,6 @@ def test_compile_cache_env(tmp_path, monkeypatch):
                           old_min)
         jax.config.update("jax_compilation_cache_dir", old_dir)
         cc.reset_cache()  # back to the suite-wide cache (conftest)
-
-
-def test_windows_precision_suffix_validated():
-    with pytest.raises(ValueError, match="windows"):
-        AudioEngine(sample_rate=SR, num_voices=8, backend="jax",
-                    fetch="windows:hi")
-
-
 def test_play_honors_clip_looping_flag():
     """clip.play() with no argument consults set_looping (the reference's
     transport.looping, lib/ClipAudioSource.cpp:243-253)."""
@@ -579,12 +453,11 @@ def test_constructor_validation_errors():
     with pytest.raises(ValueError, match="bank_dtype"):
         AudioEngine(sample_rate=SR, backend="numpy", num_voices=8,
                     bank_dtype="int8")
-    with pytest.raises(ValueError, match="ratio_ladder"):
+    with pytest.raises(ValueError, match="backend"):
+        AudioEngine(sample_rate=SR, backend="cuda", num_voices=8)
+    with pytest.raises(ValueError, match="voice_buckets"):
         AudioEngine(sample_rate=SR, backend="numpy", num_voices=8,
-                    ratio_ladder="fine")
-    with pytest.raises(ValueError, match="chunk"):
-        AudioEngine(sample_rate=SR, backend="jax", num_voices=8,
-                    block_frames=128, fetch="windows:c96")
+                    voice_buckets="fine")
     with pytest.raises(ValueError, match="lookahead"):
         AudioEngine(sample_rate=SR, backend="numpy", num_voices=8,
                     lookahead=4)
@@ -753,21 +626,6 @@ def test_timer_command_observer_and_embedded_clip_command():
     assert engine.pool.active.any()
 
 
-def test_windows_fetch_misconfig_fails_at_construction():
-    """Explicit fetch="windows" with impossible geometry raises at
-    construction, not mid-render (the kernel's chunk/grid/group
-    divisibility rules, ops/fetch_pallas.py)."""
-    with pytest.raises(ValueError, match="chunk"):
-        AudioEngine(sample_rate=SR, block_frames=96, num_voices=32,
-                    backend="jax", fetch="windows:c128")
-    with pytest.raises(ValueError, match="grid"):
-        AudioEngine(sample_rate=SR, block_frames=256, num_voices=32,
-                    backend="jax", fetch="windows:grid,c64")
-    with pytest.raises(ValueError, match="group"):
-        AudioEngine(sample_rate=SR, block_frames=128, num_voices=48,
-                    backend="jax", fetch="windows:g32")
-
-
 def test_lookahead_one_block_collapses_to_plain_path():
     """A 1-block horizon IS the plain per-block path: auto at
     block_frames=2048 resolves to H=1 and collapses to 0, and an explicit
@@ -815,30 +673,30 @@ def test_python_host_core_jax_backend_matches_numpy():
                                rtol=1e-6, atol=1e-7)
 
 
-def test_over_envelope_note_gather_fallback_bit_equal():
-    """A note beyond the declared windows envelope (ratio 5.66 > 4.0) must
-    route the whole dispatch through the slab-free gather fetch — whose
-    semantics are the gather engine's — including horizon dispatches
-    (engine._render_rmax -> None; VERDICT r3 #5: the engine accepts any
-    MIDI note/root pair like the reference). Compared against a jax
-    gather engine (same compiled math family) and the numpy mirror at the
-    established backend tolerance."""
+@pytest.mark.parametrize("note,ratio", [(90, 2 ** 2.5), (96, 8.0),
+                                         (120, 32.0)])
+def test_over_envelope_note_gather_fallback_bit_equal(note, ratio):
+    """High pitch ratios (5.66, 8, 32 — notes 30, 36 and 60 above root)
+    render through the gather fetch on the device, per-block and in the
+    lookahead horizon, and match the numpy mirror at the established
+    backend tolerance: the engine accepts any MIDI note/root pair like
+    the reference, whose pitchRatio has no ceiling
+    (lib/SamplerSynthVoice.cpp:115-116)."""
     import numpy as np
 
     from libzl_tpu.engine.commands import ClipCommand
     from libzl_tpu.io.wav import AudioData
     from libzl_tpu.models.clip import ClipAudioSource
 
-    def run(backend, fetch):
-        e = AudioEngine(sample_rate=SR, backend=backend, num_voices=16,
-                        fetch=fetch)
+    def run(backend):
+        e = AudioEngine(sample_rate=SR, backend=backend, num_voices=16)
         t = np.arange(30000) / SR
         c = ClipAudioSource(e, audio=AudioData(
             (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)[:, None],
             SR))
         e.start_transport(bpm=120)
         cmd = ClipCommand.channel(c.id, 1)
-        cmd.midi_note = 90  # 30 above root: ratio 2^2.5 ~ 5.66 > 4.0
+        cmd.midi_note = note
         cmd.change_volume = True
         cmd.volume = 1.0
         cmd.looping = True
@@ -846,20 +704,20 @@ def test_over_envelope_note_gather_fallback_bit_equal():
         cmd.start_playback = True
         e.schedule_clip_command(cmd, 0)
         # 24 blocks: the horizon engages at block 3 (clean-run gate) and a
-        # second one starts at 19, so both fallback dispatches are covered
+        # second one starts at 19, so both dispatch kinds are covered
         out = np.concatenate([
             np.asarray(e.process_block().outputs.master) for _ in range(24)
         ])
         return out, e
 
-    win, e_win = run("jax", "windows")
-    gat, _ = run("jax", "gather")
-    ref, _ = run("numpy", "gather")
-    v = int(e_win.pool.active.argmax())
-    assert float(e_win.pool.rate_int[v] + e_win.pool.rate_frac[v]) > 4.0
-    assert e_win._h_slices, "horizon should engage on the over-ratio session"
-    np.testing.assert_array_equal(win, gat)
-    np.testing.assert_allclose(win, ref, rtol=1e-5, atol=1e-7)
+    dev, e_dev = run("jax")
+    ref, _ = run("numpy")
+    v = int(e_dev.pool.active.argmax())
+    got = float(e_dev.pool.rate_int[v] + e_dev.pool.rate_frac[v])
+    assert got == pytest.approx(ratio, rel=1e-6)
+    assert e_dev._h_slices, "horizon should engage on the high-ratio session"
+    assert np.abs(dev).max() > 0
+    np.testing.assert_allclose(dev, ref, rtol=1e-5, atol=1e-7)
 
 
 def test_quirk_gain_strict_reference_mode_end_to_end():

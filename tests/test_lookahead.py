@@ -2,11 +2,11 @@
 
 The engine renders H blocks per upload+dispatch on clean blocks and
 preempts the horizon whenever an event lands, so event latency stays one
-block while fixed per-dispatch costs amortize H-fold (the live-path
-decomposition that motivated this is in tools/tpu_probe{1,2}_r3.py and
-NOTES_TPU_ENV.md). The horizon is H stacked per-block programs built by
-simulating the host's per-block advance, so horizon output is
-BIT-IDENTICAL to per-block output — every differential below asserts
+block while fixed per-dispatch costs amortize H-fold. The horizon is H
+stacked per-block programs built by simulating the host's per-block
+advance, so horizon output is BIT-IDENTICAL to per-block output on the CPU
+backend (on the GPU the two graphs agree to float32 rounding,
+chip_smoke.py) — every differential below asserts
 exact equality, not f32 tolerance. Event blocks rebuild the horizon in
 the same dispatch when traffic is sparse (REBUILD_MIN_GAP), keeping
 quiet-regime amortization in event-dense sessions.
@@ -65,8 +65,7 @@ def test_auto_resolution():
     assert eng._lookahead == 16
     eng_np = AudioEngine(block_frames=128, num_voices=16, backend="numpy")
     assert eng_np._lookahead == 0
-    # superblock bounce path: H=2 (window caps at 2048 frames — W=4096
-    # fits VMEM but measures worse on hardware; NOTES round-3 probe 4)
+    # superblock bounce path: H=2 (the window caps at 2048 frames)
     eng_sb = AudioEngine(block_frames=1024, num_voices=16, backend="jax")
     assert eng_sb._lookahead == 2
     eng_huge = AudioEngine(block_frames=4096, num_voices=16, backend="jax")
@@ -103,7 +102,7 @@ def test_midhorizon_event_preempts_with_exact_timing():
 def test_event_block_rebuilds_horizon():
     """An event landing after a long clean run rebuilds the horizon in the
     SAME block (one dispatch, H blocks delivered, H-block deadline) — the
-    event-storm SLO fix (VERDICT r3 #1). Back-to-back events must not."""
+    event-storm SLO fix. Back-to-back events must not."""
     eng, clip = _engine("auto")
     starts = []
     orig = type(eng)._start_horizon
@@ -467,11 +466,9 @@ def test_compact_dynamics_reconstruction_bit_exact():
         died_any |= bool(
             (np.asarray(true_prog.stop_frame) < B).any())
         want = render_mod.render_block_math(
-            np, sound, true_prog, strips, B, fetch="gather",
-            max_pitch_ratio=eng.max_pitch_ratio)
+            np, sound, true_prog, strips, B)
         got = render_mod.render_block_math(
-            np, sound, recs[h], strips, B, fetch="gather",
-            max_pitch_ratio=eng.max_pitch_ratio)
+            np, sound, recs[h], strips, B)
         for name, a, b in zip(want._fields, want, got):
             np.testing.assert_array_equal(
                 a, b, err_msg=f"slice {h} field {name}")
@@ -628,9 +625,7 @@ def test_discarded_spec_build_early_exits_on_worker():
 
 def test_spec_depth_fixed_near_events():
     """Speculation depth must stay at the configured value even right
-    after an event: an adaptive depth-1-near-events variant measured 3x
-    WORSE storm SLO (1.118% vs 0.351%, NOTES round-5 campaigns #3/#4) —
-    the pump renders in bursts, and a depth-1 chain refills only at
+    after an event: the pump renders in bursts, and a depth-1 chain refills only at
     adoption, so exhaustion inside a burst waits the full horizon upload
     against a 1-block budget. The generation guards already make deep
     chains cheap to discard."""

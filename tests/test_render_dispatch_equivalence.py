@@ -1,10 +1,10 @@
 """The two jitted dispatch surfaces must render bit-identically.
 
-`render_block_fused` (one int32 buffer; the production live path since the
-round-3 transfer probes) and `render_block_packed` (the two-buffer variant
-the TPU probes A/B against) share `render_block_math`; what differs is the
-packing/bitcast plumbing around it. A drift between them would silently
-invalidate every probe comparison, so pin bit-equality — including the
+`render_block_fused` (one int32 buffer; the production live path) and
+`render_block_packed` (the two-buffer variant) share `render_block_math`;
+what differs is the packing/bitcast plumbing around it. A drift between
+them would silently invalidate any comparison of the two, so pin
+bit-equality — including the
 in-jit voice_peaks padding used by the bucketed prefix dispatch.
 
 Reference analog: the single per-sample render loop the two paths both

@@ -111,7 +111,7 @@ def test_clip_crossfade_render(tmp_path):
 
 
 def test_stretch_preserves_click_train():
-    """Transient quality (VERDICT r1 #5): identity phase-locking smears
+    """Transient quality: identity phase-locking smears
     clicks; the onset phase-reset must keep a click train a click train.
     Criteria: >= 8 of 10 clicks survive as distinct events, and each event
     keeps 90% of its local energy within 64 samples (a smeared vocoder

@@ -52,7 +52,7 @@ def test_session_roundtrip(tmp_path):
 
 
 def test_session_restores_transport_position_and_looping(tmp_path):
-    """Regression (ADVICE r1): tick_position was saved but never restored,
+    """Regression: tick_position was saved but never restored,
     and the clip looping flag was not serialized."""
     wav = tmp_path / "src.wav"
     t = np.arange(SR // 4) / SR
@@ -81,7 +81,7 @@ def test_session_restores_transport_position_and_looping(tmp_path):
 
 
 def test_recorder_survives_writer_failure(tmp_path):
-    """Regression (ADVICE r1): a writeframes failure must not wedge push()
+    """Regression: a writeframes failure must not wedge push()
     or stop() — the writer marks itself failed and drains."""
     from libzl_tpu.engine.recorder import DiskRecorder
 

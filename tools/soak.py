@@ -1,14 +1,14 @@
-"""Real-TPU long soak: the C-ABI pump sustained for N minutes (VERDICT r2 #8).
+"""Long soak on the accelerator: the C-ABI pump sustained for N minutes.
 
-Boots the production path (native/libzl.so shim -> jax/TPU backend,
-bucket warmup, lookahead horizon, wall-paced pump with a file sink),
+Boots the production path (native/libzl.so shim -> jax backend on the
+GPU, bucket warmup, lookahead horizon, wall-paced pump with a file sink),
 plays a sequenced multi-clip session live for SOAK_MINUTES, records
 global playback, and reports the reliability counters the reference's
 "runs a whole set live" bar implies: deadline misses (SLO), dsp load,
 watchdog event accounting, pump errors, recorder output integrity.
+Inputs, the sink file and the take go to `soak_out/` in the checkout.
 
-    SOAK_MINUTES=10 nohup python tools/tpu_soak_r3.py \
-        > /tmp/tpu_soak_r3.log 2>&1 &
+    SOAK_MINUTES=10 python tools/soak.py
 """
 
 import ctypes
@@ -22,23 +22,23 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+OUT = os.path.join(REPO, "soak_out")
 MINUTES = float(os.environ.get("SOAK_MINUTES", "10"))
 # seconds between clip retriggers. The default (5 s) is the realistic mix
 # of clean and dirty blocks; SOAK_EVENT_SECONDS=0.1 is the event-storm
 # regime where nearly every lookahead horizon is preempted — sustained
 # event-block stress instead of the quiet amortized path.
 EVENT_SECONDS = float(os.environ.get("SOAK_EVENT_SECONDS", "5.0"))
-# SOAK_SCHEDULE_TICKS > 0 = the SEQUENCER regime (VERDICT r3 #1's second
-# criterion): each retrigger is scheduled into the step ring that many
-# ticks AHEAD (the reference's whole SyncTimer purpose, SyncTimer.cpp:
-# 397-401) instead of fired immediately; 0 = live/immediate traffic.
+# SOAK_SCHEDULE_TICKS > 0 = the SEQUENCER regime: each retrigger is
+# scheduled into the step ring that many ticks AHEAD (the reference's
+# whole SyncTimer purpose, SyncTimer.cpp:397-401) instead of fired
+# immediately; 0 = live/immediate traffic.
 SCHEDULE_TICKS = int(os.environ.get("SOAK_SCHEDULE_TICKS", "0"))
 
 
 def main():
-    # `kill -USR1 <pid>` dumps all thread stacks to stderr — the only way
-    # to tell a relay D2H hang from a lock deadlock on this image (no
-    # gdb/py-spy; observed: a mid-soak freeze with flush_sync in flight)
+    # `kill -USR1 <pid>` dumps all thread stacks to stderr: tells a stuck
+    # device transfer from a lock deadlock without a debugger
     import faulthandler
     import signal
 
@@ -47,7 +47,9 @@ def main():
     os.environ.setdefault("LIBZL_TPU_VOICES", "1024")
     os.environ.setdefault("LIBZL_TPU_WARMUP", "1")
     os.environ.setdefault("LIBZL_TPU_PIPELINE", "2")
-    os.environ.setdefault("LIBZL_TPU_SINK", "file:/tmp/tpu_soak_sink.wav")
+    os.makedirs(OUT, exist_ok=True)
+    os.environ.setdefault("LIBZL_TPU_SINK",
+                          "file:" + os.path.join(OUT, "sink.wav"))
 
     from libzl_tpu.io.wav import read_wav, write_wav
 
@@ -58,7 +60,7 @@ def main():
         t = np.arange(int(sr * (0.5 + 0.3 * i))) / sr
         w = (0.35 * np.sin(2 * np.pi * freq * t)
              + 0.1 * np.sin(2 * np.pi * 2 * freq * t)).astype(np.float32)
-        p = f"/tmp/tpu_soak_in{i}.wav"
+        p = os.path.join(OUT, f"in{i}.wav")
         write_wav(p, w, sr)
         clips_wav.append(p)
 
@@ -79,14 +81,14 @@ def main():
     eng = rt.engine
     import jax
 
-    print("backend:", jax.default_backend(), "fetch:", eng.fetch,
-          "lookahead:", eng._lookahead, "buckets:", eng._bucket_ladder,
+    print("backend:", jax.default_backend(), "lookahead:", eng._lookahead, "buckets:", eng._bucket_ladder,
           flush=True)
 
     handles = [zl.ClipAudioSource_new(p.encode(), False) for p in clips_wav]
     assert all(handles)
     zl.AudioLevels_setRecordGlobalPlayback(True)
-    zl.AudioLevels_setGlobalPlaybackFilenamePrefix(b"/tmp/tpu_soak_rec.wav")
+    rec_path = os.path.join(OUT, "rec.wav")
+    zl.AudioLevels_setGlobalPlaybackFilenamePrefix(rec_path.encode())
     zl.AudioLevels_startRecording()
     zl.SyncTimer_startTimer(124)
     for h in handles:
@@ -147,7 +149,7 @@ def main():
     expected = MINUTES * 60 * sr / eng.block_frames
     zl.shutdownJuce()
 
-    rec = read_wav("/tmp/tpu_soak_rec.wav")
+    rec = read_wav(rec_path)
     out = dict(
         minutes=MINUTES,
         event_seconds=EVENT_SECONDS,
